@@ -97,7 +97,7 @@ class MusicaConfig:
     clahe_bins: int = 256
     clahe_clip_limit: float = 1.0 / 32.0
 
-    # --- storage precision (TPU-native fast mode; no reference analogue) ---
+    # --- storage precision (fast mode; no reference analogue) ---
     # "float32" (default) is the reference-parity mode: every stage image is
     # f32 and the output is bit-exact vs the golden model.  "bfloat16" stores
     # the BAND streams -- pyramid bandpasses, contrast-applied bandpasses and
@@ -109,12 +109,12 @@ class MusicaConfig:
     # frequency quantization noise (~bf16 ulp of 0.5 = 2e-3) straight into
     # fine-level bands of magnitude ~1e-2, inflating the noise analysis
     # (level-3 sdev +20%, CNR across the relevance cliff, tone curve shifted
-    # by tens of u8 LSB on some anatomies -- the measured failure of the
-    # round-4 full-bf16-ladder design, docs/ROUND5.md).  Rounding the
-    # computed band instead is relative to the band (~0.4%), benign for the
-    # analysis and the reconstruction.  Accuracy vs the f32 parity mode is
-    # measured in tests/test_bf16.py (all six anatomies) and on chip in
-    # artifacts/exp_bf16.json + docs/PERFORMANCE.md "bf16 storage".
+    # by tens of u8 LSB on some anatomies -- the measured failure of an
+    # earlier full-bf16-ladder design).  Rounding the computed band instead
+    # is relative to the band (~0.4%), benign for the analysis and the
+    # reconstruction.  Accuracy vs the f32 parity mode is measured in
+    # tests/test_bf16.py and, at 3072 on the GPU, by chip_smoke.py.  Whether
+    # it is faster on the GPU is not measured yet.
     storage: str = "float32"
 
     # --- fidelity mode ---

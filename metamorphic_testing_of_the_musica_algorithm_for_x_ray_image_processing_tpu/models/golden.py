@@ -1,6 +1,6 @@
 """Pure-NumPy golden model of the MUSICA pipeline.
 
-This is the *semantic oracle* for the JAX/Pallas implementation: a direct,
+This is the *semantic oracle* for the JAX implementation: a direct,
 readable, float32-exact transcription of what the reference's 24 GLSL compute
 shaders do (``/root/reference/shaders/*.comp``), including their quirks
 (documented per function).  Every JAX op in ``ops/`` is unit-tested against

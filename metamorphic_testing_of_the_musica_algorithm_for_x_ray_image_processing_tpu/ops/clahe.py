@@ -28,7 +28,7 @@ F32 = jnp.float32
 
 
 def clahe_histograms(recon: jnp.ndarray, relevant: jnp.ndarray,
-                     cfg: MusicaConfig, method: str = "auto") -> jnp.ndarray:
+                     cfg: MusicaConfig) -> jnp.ndarray:
     """[tiles, tiles, bins] histogram of pixels with relevant == 1.0.
 
     bin = int(pixel * (bins-1) + 0.5) (clahe_histogram.comp:20); OOB bins
@@ -45,7 +45,7 @@ def clahe_histograms(recon: jnp.ndarray, relevant: jnp.ndarray,
     joint = b + tile_id * bins  # composite bin: tile * bins + intensity
     w = jnp.where((b >= 0) & (b < bins), w, 0.0)
     joint = jnp.where((b >= 0) & (b < bins), joint, 0)
-    h = fixed_histogram(joint, w, t * t * bins, method)
+    h = fixed_histogram(joint, w, t * t * bins)
     return h.reshape(t, t, bins)
 
 
@@ -145,34 +145,10 @@ def clahe_apply(recon: jnp.ndarray, px: jnp.ndarray, py: jnp.ndarray,
 
 
 def clahe_grade(recon: jnp.ndarray, relevant: jnp.ndarray,
-                cfg: MusicaConfig, method: str = "auto") -> jnp.ndarray:
+                cfg: MusicaConfig) -> jnp.ndarray:
     """Full CLAHE gradation: histograms -> clipped CDF LUTs -> blended apply.
-
-    On TPU the apply step uses the fused Pallas kernel
-    (ops/pallas/clahe_apply.py): the XLA formulation's 12 full-image LUT
-    gathers cost ~837 ms at 3072 on v5e vs ~3 ms for the kernel's one-hot
-    MXU lookup (bit-preserving bf16x3 LUT planes)."""
-    import jax
-    # "fused"/"fused_interpret" name the pipeline's image->histogram Pallas
-    # kernels, which don't exist for the CLAHE joint histogram -- map them
-    # to fixed_histogram's auto dispatch (pallas on TPU, fact elsewhere)
-    # instead of its one-hot scan fallback
-    hist_method = ("auto" if method in ("auto", "fused", "fused_interpret")
-                   else method)
-    h = clahe_histograms(recon, relevant, cfg, hist_method)
+    The apply's LUT gathers read a [tiles, tiles, bins] table small enough
+    to stay in cache."""
+    h = clahe_histograms(recon, relevant, cfg)
     px, py = clahe_curves(h, cfg)
-    n = recon.shape[-1]
-    # power-of-two bins required: the kernel's ulp-exactness argument relies
-    # on x*bins and i/bins being exact power-of-two scalings (Mosaic lowers
-    # general f32 division as an approximate reciprocal)
-    use_fused = (method in ("auto", "fused")
-                 and jax.default_backend() == "tpu"
-                 and cfg.clahe_bins & (cfg.clahe_bins - 1) == 0
-                 and recon.ndim == 2 and n % cfg.clahe_tiles == 0
-                 and any((n // cfg.clahe_tiles) % r == 0
-                         for r in (96, 48, 32, 16, 8)))
-    if use_fused:
-        from .pallas.clahe_apply import clahe_apply_fused
-        return clahe_apply_fused(recon, py, t=cfg.clahe_tiles,
-                                 bins=cfg.clahe_bins)
     return clahe_apply(recon, px, py, cfg)

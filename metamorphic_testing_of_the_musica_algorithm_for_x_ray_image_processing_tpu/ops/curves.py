@@ -6,7 +6,8 @@ and evaluates them with a first-match linear search per pixel
 a handful of scalar jnp ops (the points are functions of traced histogram
 statistics), and ``curve_get_y`` is an unrolled compare/select chain over the
 statically-sized point list -- XLA fuses it into a single elementwise pass,
-so evaluating a 33-point curve over a 3072^2 image is one VPU sweep.
+so evaluating a 33-point curve over a 3072^2 image is one elementwise
+sweep.
 """
 
 from __future__ import annotations
@@ -108,11 +109,10 @@ def curve_get_y_sorted(px: jnp.ndarray, py: jnp.ndarray,
     one interval (px_i, px_{i+1}] (zero-width duplicate segments never
     match); x outside (px_0, px_last] yields 0.0 except x == px_0 -> py_0
     (the reference's fallthrough/ext-zero read).
-    Fewer VPU ops than curve_get_y and no cross-iteration dependency chain.
-    (A value-carrying tournament tree was tried and measured SLOWER on v5e
-    -- 0.72 -> 2.8 ms for the tone map: XLA materializes the tree's carried
-    intermediates instead of fusing them into one elementwise pass; see
-    docs/PERFORMANCE.md negative results.)
+    Fewer elementwise ops than curve_get_y and no cross-iteration
+    dependency chain.  (A value-carrying tournament tree was tried on an
+    earlier platform and was slower: XLA materialized the tree's carried
+    intermediates instead of fusing them into one elementwise pass.)
 
     Evaluated as a LAST-TRUE-WINS select chain over ``lt[i] = px[i] < x``:
     px non-decreasing makes lt monotone non-increasing in i, so the unique
@@ -126,7 +126,7 @@ def curve_get_y_sorted(px: jnp.ndarray, py: jnp.ndarray,
     3 selects + 1 compare per interval -- and evaluates ONE lerp on the
     selected triple, instead of evaluating every interval's lerp and
     selecting values (1 compare + sub/mul/add + select per interval):
-    ~130 -> ~110 VPU ops/pixel for the 33-point contrast curve.  The
+    ~130 -> ~110 ops/pixel for the 33-point contrast curve.  The
     selected scalars and the final lerp arithmetic are exactly those the
     per-interval evaluation would use, so the result is bit-identical
     (zero-width intervals produce inf/nan slopes but are never selected,
@@ -170,10 +170,9 @@ def curve_get_y_general(px: jnp.ndarray, py: jnp.ndarray,
       ascending pairs the exact hit is subsumed by the interval hit.
     * No match -> the (0, 0, 0) triple evaluates to exactly +0.0.
 
-    6 VPU ops per interval (2 compares + AND + 3 selects) with one final
-    lerp -- and NO runtime ``lax.cond``: the adaptive cond this replaces
-    cost a flat ~0.3 ms at 3072^2 on v5e regardless of which branch ran
-    (scripts/exp_fusion.py / exp_fusion3.py).
+    6 ops per interval (2 compares + AND + 3 selects) with one final
+    lerp -- and NO runtime ``lax.cond`` (the adaptive cond this replaces
+    cost a flat overhead whichever branch ran).
     """
     n = px.shape[0]
     px_e = jnp.concatenate([px, jnp.zeros((1,), F32)])
@@ -184,7 +183,7 @@ def curve_get_y_general(px: jnp.ndarray, py: jnp.ndarray,
     # below lerps to +0.0 only for FINITE x (0 * inf = NaN).  Redirect
     # nonfinite x to a finite sentinel far above every real curve's domain
     # (px is O(1) in this pipeline): it misses every interval and the
-    # no-match lerp yields exactly +0.0 -- 2 VPU ops instead of an n-term
+    # no-match lerp yields exactly +0.0 -- 2 ops instead of an n-term
     # hit_any chain on the hot tone-map path.
     x = jnp.where(jnp.isfinite(x), x, F32(3.0e38))
     ms = (py_e[1:] - py_e[:-1]) / (px_e[1:] - px_e[:-1])
@@ -210,10 +209,9 @@ def curve_get_y_adaptive(px: jnp.ndarray, py: jnp.ndarray,
 
     Now an alias of the branchless ``curve_get_y_general`` chain.  The
     previous formulation dispatched between the sorted and first-match
-    chains with a runtime ``lax.cond``; on v5e the cond itself cost a flat
-    ~0.3 ms at 3072^2 (not the branches, and not the operand copy --
-    scripts/exp_fusion.py, exp_fusion2.py), so the branchless chain wins
-    ~0.2 ms while staying bit-identical for every curve shape.
+    chains with a runtime ``lax.cond``, whose own cost exceeded the
+    branches' difference; the branchless chain is bit-identical for every
+    curve shape.
     """
     return curve_get_y_general(px, py, x)
 
@@ -223,8 +221,7 @@ def curve_apply_u8_adaptive(px: jnp.ndarray, py: jnp.ndarray,
     """``clip(trunc(255 * getY(px, py, x)))`` as uint8 in one fused
     elementwise pass (the crop-first tone map + quantization), using the
     branchless general chain -- bit-identical to quantizing either
-    lax.cond branch of the old adaptive dispatch (checksum-verified at
-    pipeline level on v5e, scripts/exp_fusion3.py)."""
+    lax.cond branch of the old adaptive dispatch."""
     g = curve_get_y_general(px, py, x)
     return jnp.clip(jnp.trunc(F32(255.0) * g), 0.0, 255.0).astype(jnp.uint8)
 

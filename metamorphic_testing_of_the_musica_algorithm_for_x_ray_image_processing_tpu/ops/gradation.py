@@ -3,7 +3,7 @@ tone-curve synthesis, and the final LUT application.
 
 The reference's gradation_curve_generate is a single-thread GPU kernel with
 three sequential scans over the 1024-bin histogram
-(shaders/gradation_curve_generate.comp:49-182).  On TPU those scans become
+(shaders/gradation_curve_generate.comp:49-182).  Here those scans become
 vectorized prefix reductions:
 
 * weighted mean      -> masked dot products (uint32 wrap-around preserved);
@@ -42,8 +42,8 @@ def gradation_bins(recon: jnp.ndarray, relevant: jnp.ndarray, cfg: MusicaConfig)
     zero = (v == 0.0).reshape(v.shape[:-2] + (t, tile, t, tile))
     # a pixel at tile offset (m, n) survives iff no zero exists in any earlier
     # tile column m' < m AND none at rows <= n of its own column -- equivalent
-    # to the flatten-scan cumsum but transpose-free; first-occurrence argmax
-    # instead of cumsums (~2x cheaper on TPU):
+    # to the flatten-scan cumsum but transpose-free (first-occurrence argmax
+    # instead of cumsums):
     col_zero = zero.any(axis=-1)                                     # (tx, m, ty)
     any_c = col_zero.any(axis=-2)                                    # (tx, ty)
     first_zc = jnp.where(any_c, jnp.argmax(col_zero, axis=-2), tile)
@@ -60,60 +60,12 @@ def gradation_bins(recon: jnp.ndarray, relevant: jnp.ndarray, cfg: MusicaConfig)
 
 
 def gradation_histogram(recon: jnp.ndarray, relevant: jnp.ndarray,
-                        cfg: MusicaConfig, method: str = "auto") -> jnp.ndarray:
-    """Methods: 'fused' (pallas image->hist kernel, TPU default), or any
-    fixed_histogram method applied to the separately-computed bins."""
-    import jax
-    if method == "auto":
-        method = "fused" if jax.default_backend() == "tpu" else "fact"
-    if method in ("fused", "fused_interpret"):
-        from .pallas import fused_hist
-        n = recon.shape[-1]
-        tile = cfg.histogram_area_size
-        cov = -(-n // tile) * tile
-        v, r = recon, relevant
-        if cov > n:
-            pad = [(0, 0)] * (v.ndim - 2) + [(0, cov - n), (0, cov - n)]
-            v = jnp.pad(v, pad)
-            r = jnp.pad(r, pad)
-        return fused_hist.grad_hist_fused(
-            v, r, cfg.grad_histogram_bins, tile,
-            interpret=(method == "fused_interpret"))
+                        cfg: MusicaConfig) -> jnp.ndarray:
+    """Relevance-weighted gradation histogram
+    (shaders/gradation_histogram.comp): the tile-``return`` masks of
+    ``gradation_bins``, then ``fixed_histogram``."""
     bins, w = gradation_bins(recon, relevant, cfg)
-    return fixed_histogram(bins, w, cfg.grad_histogram_bins, method)
-
-
-def gradation_histogram_fused_relevance(recon: jnp.ndarray,
-                                        normalized: jnp.ndarray,
-                                        cnr: jnp.ndarray,
-                                        cfg: MusicaConfig,
-                                        method: str = "auto") -> jnp.ndarray:
-    """Gradation histogram with the relevance mask computed inside the pallas
-    kernel (saves one full-res HBM round trip).  Falls back to the two-step
-    path off-TPU or when the CNR scale doesn't align with the 16-px tiles."""
-    import jax
-    import math
-    from . import noise as noise_ops
-    n = recon.shape[-1]
-    tile = cfg.histogram_area_size
-    scale = int(math.ceil(n / cnr.shape[-1]))
-    fused_ok = (method in ("auto", "fused", "fused_interpret")
-                and tile % scale == 0 and n % tile == 0)
-    if method == "auto":
-        method = "fused" if jax.default_backend() == "tpu" else "fact"
-    if fused_ok and method in ("fused", "fused_interpret"):
-        from .pallas import fused_hist
-        return fused_hist.grad_hist_relevant_fused(
-            recon, normalized, cnr,
-            n_img=n, cnr_scale=scale, border=cfg.relevant_border,
-            cnr_low=cfg.relevant_cnr_low,
-            cnr_top=cfg.relevant_cnr_low + cfg.relevant_cnr_ramp,
-            cnr_max=cfg.max_cnr_value, k_pow=cfg.relevant_k,
-            max_pixel=cfg.relevant_max_pixel,
-            n_bins=cfg.grad_histogram_bins, tile=tile,
-            interpret=(method == "fused_interpret"))
-    relevant = noise_ops.img_relevant(normalized, cnr, cfg)
-    return gradation_histogram(recon, relevant, cfg, method)
+    return fixed_histogram(bins, w, cfg.grad_histogram_bins)
 
 
 def gradation_curve(hist: jnp.ndarray, cfg: MusicaConfig):

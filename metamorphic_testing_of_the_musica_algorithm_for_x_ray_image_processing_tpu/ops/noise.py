@@ -3,8 +3,8 @@
 Design notes: the CNR image lives at the cnr_level resolution (384^2 for a
 3072 input) and is consumed at finer resolutions through integer nearest
 upsampling (scale = ceil(target/size), idx = x // scale --
-shaders/noise_reduction.comp:38-46, img_relevant.comp:32-39); on TPU that is
-a repeat/gather that XLA fuses into the consuming elementwise op.
+shaders/noise_reduction.comp:38-46, img_relevant.comp:32-39); here that is
+a repeat that XLA fuses into the consuming elementwise op.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ F32 = jnp.float32
 
 
 def _pow_maybe_int(x, k: float):
-    """x ** k; for small integer k an exact multiply chain, so the VPU, the
-    Mosaic kernel and NumPy agree bit-for-bit (library pow differs by ulps
+    """x ** k; for small integer k an exact multiply chain, so every XLA
+    backend and NumPy agree bit-for-bit (library pow differs by ulps
     across backends, which flips uint(rel*100) weight boundaries)."""
     if float(k).is_integer() and 1 <= int(k) <= 8:
         acc = x
@@ -45,9 +45,9 @@ def img_cnr(sdev: jnp.ndarray, max_bin: jnp.ndarray, cfg: MusicaConfig) -> jnp.n
 def nearest_upsample(small: jnp.ndarray, target: int) -> jnp.ndarray:
     """Integer-scale nearest upsample: scale = ceil(target/size), idx = x//scale.
 
-    jnp.repeat + slice (broadcast/reshape, ~free on TPU) instead of a gather
-    (two 37 MB gathers cost ~2.3 ms at 3072^2 on v5e); ``x // scale`` indexing
-    is exactly ``repeat(scale)`` truncated to target.
+    jnp.repeat + slice (broadcast/reshape, which fuses into the consumer)
+    instead of a gather; ``x // scale`` indexing is exactly
+    ``repeat(scale)`` truncated to target.
     """
     size = small.shape[-1]
     scale = int(math.ceil(target / size))

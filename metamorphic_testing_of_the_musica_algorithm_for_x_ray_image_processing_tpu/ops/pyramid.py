@@ -1,12 +1,12 @@
 """Gaussian/Laplacian pyramid ops: 5x5 Burt-Adelson smoothing (a = 0.3),
 decimation, zero-stuff upsampling.
 
-TPU design notes
-----------------
+Design notes
+------------
 The reference runs four Vulkan dispatches per level (smooth, downsample,
 upsample, smooth x4; ``src/vk_processing.cpp:2232-2273``).  Here each is a
 pure function of static shape; XLA fuses the 5-tap separable convolutions
-into single VPU passes, and ``smooth_downsample`` computes only the kept
+into single elementwise passes, and ``smooth_downsample`` computes only the kept
 (even) output pixels -- the reference's full-resolution smooth image is never
 consumed anywhere else (its only reader is the decimator), so fusing is
 exact.
@@ -131,13 +131,13 @@ def split_planes(img: jnp.ndarray):
 
     One strided relayout here replaces the stride-2 tap reads that every
     level of the reduce ladder otherwise performs (5 strided slices per
-    separable pass cost ~0.36 ms at 3072^2 on v5e; the planes make every
-    downstream stencil read unit-stride).
+    separable pass; the planes make every downstream stencil read
+    unit-stride).
 
-    Implementation note: the split MUST be one-axis-at-a-time -- a fused
-    double-strided slice ``x[0::2, 0::2]`` takes ~24 ms/plane at 3072^2 on
-    v5e, the staged form ~0.03 ms total (measured; XLA fuses the two
-    single-axis strided copies).
+    Implementation note: the split is one-axis-at-a-time, so XLA fuses the
+    two single-axis strided copies (a fused double-strided slice
+    ``x[0::2, 0::2]`` was far slower on an earlier platform; not yet
+    re-measured on the GPU).
     """
     a, b = img[..., 0::2, :], img[..., 1::2, :]
     return (a[..., :, 0::2], a[..., :, 1::2],
@@ -264,7 +264,7 @@ def reduce_ladder(normalized: jnp.ndarray, levels: int):
     Uses the parity-plane path (``reduce_step_split``) while level sizes are
     even and >= 8, then the plain strided path for the small/odd tail --
     bit-identical to running ``smooth_downsample`` + ``upsample_smooth`` per
-    level, ~2.5x faster at 3072^2 on v5e (1.24 -> ~0.5 ms).
+    level, with unit-stride stencil reads.
     """
     bandpass, downs = [], []
     h, w = normalized.shape[-2], normalized.shape[-1]
@@ -292,9 +292,8 @@ def reduce_ladder(normalized: jnp.ndarray, levels: int):
 def upsample(img: jnp.ndarray, out_size: int) -> jnp.ndarray:
     """Zero-stuff x2: out[2x, 2y] = in[x, y] (shaders/img_upsample.comp:18).
 
-    Implemented as stack + reshape interleaving: a strided scatter
-    (``.at[::2, ::2].set``) costs ~11.6 ms at 3072^2 on v5e, the reshape
-    form ~0.1 ms.
+    Implemented as stack + reshape interleaving rather than a strided
+    scatter (``.at[::2, ::2].set``), which XLA does not fuse.
     """
     src = -(-out_size // 2)
     a = img[..., :src, :src]

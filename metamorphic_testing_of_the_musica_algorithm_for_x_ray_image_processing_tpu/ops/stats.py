@@ -1,12 +1,9 @@
 """Local statistics + histograms: sdev (5x5 RMS), the noise histogram with
 the reference's per-tile-column ``break`` semantics, and histogram argmax.
 
-TPU design notes
-----------------
 The GLSL histograms are ``imageAtomicAdd`` scatters over a 1-D r32ui image
-(shaders/noise_hist.comp).  TPUs have no fast scatter; ``fixed_histogram``
-dispatches between several implementations (see its docstring), defaulting to
-the factorized one-hot MXU kernel in ``ops/pallas/histogram.py`` on TPU.
+(shaders/noise_hist.comp).  ``fixed_histogram`` computes the same exact
+counts as a factorized one-hot matrix product.
 
 The ``break`` quirk (shaders/noise_hist.comp:30-40): each GPU thread scans a
 16x16 tile column-by-column; the first pixel in a tile-column that is 0.0,
@@ -16,7 +13,6 @@ its tile-column segment is zero.
 """
 
 from __future__ import annotations
-
 
 import jax
 import jax.numpy as jnp
@@ -36,57 +32,74 @@ def img_sdev(img: jnp.ndarray) -> jnp.ndarray:
     return jnp.sqrt(s * (1.0 / 25.0))
 
 
-def fixed_histogram(bins_idx: jnp.ndarray, weights: jnp.ndarray, n_bins: int,
-                    method: str = "auto") -> jnp.ndarray:
+def _factor(n_bins: int):
+    """Split ``n_bins`` into (coarse C, fine F, padded) with C * F = padded.
+
+    Bin ``b`` lives at (b // F, b % F) for any split, so the split changes
+    the cost, never the counts.  C = 32 where that divides evenly (2048 bins
+    -> 32 x 64, 1024 -> 32 x 32); not yet tuned on the GPU.
+    """
+    if n_bins % 32 == 0 and 32 <= n_bins // 32 <= 128:
+        return 32, n_bins // 32, n_bins
+    fine = 128
+    while fine > 32 and n_bins % fine != 0:
+        fine //= 2
+    if n_bins % fine != 0:
+        padded = -(-n_bins // 32) * 32
+        return padded // 32, 32, padded
+    return n_bins // fine, fine, n_bins
+
+
+# entries per matrix-product chunk: chunk * 128 = 2^24, so a chunk's f32
+# partial counts stay exact for weights up to 128
+_HIST_CHUNK = 131072
+
+
+def fixed_histogram(bins_idx: jnp.ndarray, weights: jnp.ndarray,
+                    n_bins: int) -> jnp.ndarray:
     """Weighted histogram of int32 ``bins_idx`` (any shape) into ``n_bins``.
 
-    Out-of-range indices must already carry zero weight (they are clamped
-    into range here, mirroring dropped OOB atomics only when weights are 0).
-    Returns EXACT int32 counts [n_bins] (the GLSL histograms are uint32
-    atomics; f32 accumulation would round above 2^24).
+    Entries outside [0, n_bins) are dropped, like the reference's
+    out-of-range ``imageAtomicAdd``s.  ``weights`` are integers in
+    [0, 128] (the pipeline's are 0/1 and trunc(relevance * 100)).
+    Returns EXACT int32 counts [n_bins], as the GLSL uint32 atomics give.
 
-    Methods (all produce bit-identical integer counts):
-      * ``pallas``  -- factorized one-hot MXU kernel (ops/pallas/histogram.py);
-      * ``fact``    -- the same factorization in pure XLA;
-      * ``scatter`` -- XLA scatter-add (slow on TPU: ~63 ms / 9.4M updates);
-      * ``onehot``  -- chunked one-hot matmul via lax.scan;
-      * ``auto``    -- pallas on TPU, fact elsewhere.
+    Factorized one-hot matrix product: the bin index splits as
+    ``b = c * F + f`` (``_factor``) and
+
+        A[i, c] = w_i * [c_i == c]      (N x C, bf16)
+        B[i, f] = [f_i == f]            (N x F, bf16)
+        hist    = (A^T @ B).reshape(-1)  (f32 accumulation)
+
+    Exactness: both operands are bf16, which holds 0, 1 and every integer
+    up to 256 exactly, so each product is exactly 0 or w_i (TF32 rounding,
+    which the GPU may apply to f32 operands, does not arise).  The f32 sums
+    are taken over chunks of ``_HIST_CHUNK`` entries, each below 2^24 and
+    so exact, and the chunks are summed in int32.
+
+    Measured end to end at 3072^2 on an H100 against an int32 scatter-add
+    (the reference's atomics), this was the faster of the two (PERF.md).
     """
-    flat_b = bins_idx.reshape(-1)
-    flat_w = weights.reshape(-1).astype(jnp.float32)
-    in_range = (flat_b >= 0) & (flat_b < n_bins)
-    flat_w = jnp.where(in_range, flat_w, 0.0)
-    flat_b = jnp.clip(flat_b, 0, n_bins - 1)
-    if method == "auto":
-        method = "pallas" if jax.default_backend() == "tpu" else "fact"
-    if method in ("pallas", "fact"):
-        from .pallas import histogram as phist
-        if method == "pallas":
-            return phist.factorized_histogram_pallas(flat_b, flat_w, n_bins)
-        return phist.factorized_histogram(flat_b, flat_w, n_bins)
-    if method == "scatter":
-        # int32 accumulation: counts must be exact (GLSL uint32 atomics)
-        return jnp.zeros((n_bins,), jnp.int32).at[flat_b].add(
-            flat_w.astype(jnp.int32))
-    # one-hot matmul: chunk rows so the one-hot block stays VMEM-sized
-    n = flat_b.shape[0]
-    row = 512  # 512 x n_bins f32 one-hot block: 4 MB at 2048 bins
-    pad_n = -(-n // row) * row
-    b2 = jnp.pad(flat_b, (0, pad_n - n)).reshape(-1, row)
-    w2 = jnp.pad(flat_w, (0, pad_n - n)).reshape(-1, row)
-
-    iota = jax.lax.broadcasted_iota(jnp.int32, (1, n_bins), 1)
-
-    def body(carry, xs):
-        b, w = xs
-        onehot = (b[:, None] == iota).astype(jnp.float32)
-        part = jnp.dot(w[None, :], onehot,
-                       preferred_element_type=jnp.float32)[0]
-        return carry + part.astype(jnp.int32), None
-
-    init = jnp.zeros((n_bins,), jnp.int32)
-    hist, _ = jax.lax.scan(body, init, (b2, w2))
-    return hist
+    b = bins_idx.reshape(-1)
+    w = weights.reshape(-1).astype(jnp.float32)
+    w = jnp.where((b >= 0) & (b < n_bins), w, 0.0)
+    b = jnp.clip(b, 0, n_bins - 1)
+    C, F, _ = _factor(n_bins)
+    n = b.shape[0]
+    pad_n = -(-max(n, 1) // _HIST_CHUNK) * _HIST_CHUNK
+    if pad_n != n:
+        b = jnp.pad(b, (0, pad_n - n))
+        w = jnp.pad(w, (0, pad_n - n))  # zero weight: padding drops out
+    b2 = b.reshape(-1, _HIST_CHUNK)
+    w2 = w.reshape(-1, _HIST_CHUNK)
+    iota_c = jax.lax.broadcasted_iota(jnp.int32, (1, 1, C), 2)
+    iota_f = jax.lax.broadcasted_iota(jnp.int32, (1, 1, F), 2)
+    a = jnp.where((b2 // F)[..., None] == iota_c, w2[..., None], 0.0
+                  ).astype(jnp.bfloat16)
+    bm = ((b2 % F)[..., None] == iota_f).astype(jnp.bfloat16)
+    h2 = jax.lax.dot_general(a, bm, (((1,), (1,)), ((0,), (0,))),
+                             preferred_element_type=jnp.float32)
+    return h2.astype(jnp.int32).sum(axis=0).reshape(-1)[:n_bins]
 
 
 def coverage_view(sdev: jnp.ndarray, cfg: MusicaConfig):
@@ -124,8 +137,8 @@ def noise_bins(sdev: jnp.ndarray, cfg: MusicaConfig):
     brk = (v == 0.0) | (adjusted > 1.0) | (bins == 0)
     # tile-column break: reshape x -> (tx, m), y -> (ty, nn); scan runs along
     # nn.  A pixel survives iff the first break in its 16-lane group comes
-    # strictly after it -- an argmax formulation, ~3x cheaper than the
-    # equivalent inclusive-cumsum == 0 on TPU.
+    # strictly after it (first-occurrence argmax; equivalent to an
+    # inclusive-cumsum == 0 test).
     t = cov // tile
     brk_t = brk.reshape(brk.shape[:-2] + (t * tile * t, tile))
     any_b = brk_t.any(axis=-1)
@@ -137,114 +150,21 @@ def noise_bins(sdev: jnp.ndarray, cfg: MusicaConfig):
     return bins.reshape(bins.shape[:-2] + (-1,)), w.reshape(w.shape[:-2] + (-1,))
 
 
-def noise_histogram(sdev: jnp.ndarray, cfg: MusicaConfig,
-                    method: str = "auto") -> jnp.ndarray:
-    """Methods: 'fused' (pallas image->hist kernel, TPU default), or any
-    fixed_histogram method applied to the separately-computed bins."""
-    if method == "auto":
-        method = "fused" if jax.default_backend() == "tpu" else "fact"
-    if method in ("fused", "fused_interpret"):
-        from .pallas import fused_hist
-        v = coverage_view(sdev, cfg)
-        if v is None:
-            return jnp.zeros((cfg.noise_histogram_bins,), jnp.int32)
-        rows = next((r for r in (96, 48, 32, 16, 8) if v.shape[-2] % r == 0), 1)
-        return fused_hist.noise_hist_fused(
-            v, cfg.noise_histogram_bins, cfg.histogram_area_size,
-            cfg.max_noise_value, rows=rows,
-            interpret=(method == "fused_interpret"))
+def noise_histogram(sdev: jnp.ndarray, cfg: MusicaConfig) -> jnp.ndarray:
+    """Noise histogram of one level's sdev image (shaders/noise_hist.comp):
+    the break/coverage masks of ``noise_bins``, then ``fixed_histogram``."""
     bins, w = noise_bins(sdev, cfg)
     if bins.shape[-1] == 0:
         return jnp.zeros((cfg.noise_histogram_bins,), jnp.int32)
-    return fixed_histogram(bins, w, cfg.noise_histogram_bins, method)
+    return fixed_histogram(bins, w, cfg.noise_histogram_bins)
 
 
-def sdev_and_noise_histogram(band: jnp.ndarray, cfg: MusicaConfig,
-                             method: str = "auto"):
-    """(sdev, noise histogram) of one bandpass level.
+def analysis_noise_hists(sdevs, cfg: MusicaConfig):
+    """Noise histogram + argmax for every analysis level.
 
-    Default ('auto'/'fused'): img_sdev (XLA) + the fused histogram kernel --
-    the production path.  'fused_sdev' selects the combined Pallas kernel
-    that computes sdev in-kernel and emits both outputs in one pass
-    (requires full dispatch coverage, cov == n).  The combined kernel wins
-    2.5x measured standalone (0.39 vs 0.96 ms at 3072) and is bit-identical
-    on TPU, but LOSES ~0.4 ms in the full pipeline: downstream consumers of
-    a Pallas-produced sdev (contrast-apply gather + expand ladder) forgo
-    XLA fusion/layout choices they get when sdev is a plain XLA op
-    (A/B in docs/PERFORMANCE.md).  Kept as an opt-in for pipelines that
-    only need the histogram side.
-    """
-    if method == "auto":
-        method = "fused" if jax.default_backend() == "tpu" else "fact"
-    if method in ("fused_sdev", "fused_sdev_interpret") and band.ndim == 2:
-        n = band.shape[-1]
-        tile = cfg.histogram_area_size
-        n_pad = -(-n // tile) * tile
-        cov = min(n_pad, cfg.hist_coverage) if cfg.quirks else n_pad
-        rows = next((r for r in (96, 48, 32, 16, 8) if n % r == 0), None)
-        if cov == n and rows is not None:
-            from .pallas import fused_hist
-            h, sd = fused_hist.sdev_noise_hist_fused(
-                band, cfg.noise_histogram_bins, tile, cfg.max_noise_value,
-                rows=rows, interpret=(method == "fused_sdev_interpret"))
-            return sd, h
-    if method in ("fused_sdev", "fused_sdev_interpret"):
-        method = "fused" if method == "fused_sdev" else "fused_interpret"
-    sd = img_sdev(band)
-    return sd, noise_histogram(sd, cfg, method)
-
-
-def analysis_noise_hists(sdevs, cfg: MusicaConfig, method: str = "auto"):
-    """Noise histogram + argmax for EVERY analysis level at once.
-
-    Returns ``(hists, max_bins)`` dicts keyed by level.  On TPU (and when
-    every level's coverage view fits the common-cov layout) this runs ONE
-    ``noise_hist_argmax_multi`` kernel over the stacked views instead of
-    one hist kernel + one argmax per level -- the per-level dispatches are
-    launch-overhead bound (~0.77 ms for 4 levels vs ~0.15 ms fused at 3072,
-    scripts/exp_analysis.py).  Counts and argmaxes are bit-identical to the
-    per-level path (zero-padded lanes/rows form all-dead tile columns).
-    """
+    Returns ``(hists, max_bins)`` dicts keyed by level."""
     levels = list(cfg.analysis_levels)
-    if method == "auto":
-        method = "multi" if jax.default_backend() == "tpu" else "fact"
-    if method in ("multi", "multi_interpret"):
-        from .pallas.histogram import _factor
-
-        views = {i: coverage_view(sdevs[i], cfg) for i in levels}
-        covs = [v.shape[-1] for v in views.values() if v is not None]
-        live = [i for i in levels if views[i] is not None]
-        tile = cfg.histogram_area_size
-        # the multi kernel's flat-index argmax needs bins == C*F exactly
-        # (noise_hist_argmax_multi asserts it); non-factorizable bin counts
-        # (any non-multiple of 32) fall back to the per-level fused path,
-        # which handles padded factorizations
-        bins_exact = _factor(cfg.noise_histogram_bins)[2] == \
-            cfg.noise_histogram_bins
-        if (bins_exact and covs and max(covs) <= 512
-                and all(c % tile == 0 for c in covs)):
-            cov = max(covs)
-            rows = next((r for r in (128, 64, 32, 16) if cov % r == 0), None)
-            if rows is not None:
-                from .pallas import fused_hist
-                stacked = jnp.stack([
-                    jnp.pad(views[i], ((0, cov - views[i].shape[-2]),
-                                       (0, cov - views[i].shape[-1])))
-                    for i in live])
-                hs, mbs = fused_hist.noise_hist_argmax_multi(
-                    stacked, cfg.noise_histogram_bins, tile,
-                    cfg.max_noise_value, rows=rows,
-                    interpret=(method == "multi_interpret"))
-                hists = {i: hs[j] for j, i in enumerate(live)}
-                maxb = {i: mbs[j] for j, i in enumerate(live)}
-                for i in levels:
-                    if i not in hists:
-                        hists[i] = jnp.zeros((cfg.noise_histogram_bins,),
-                                             jnp.int32)
-                        maxb[i] = jnp.zeros((), jnp.int32)
-                return hists, maxb
-        method = "fused" if method == "multi" else "fused_interpret"
-    hists = {i: noise_histogram(sdevs[i], cfg, method) for i in levels}
+    hists = {i: noise_histogram(sdevs[i], cfg) for i in levels}
     maxb = {i: histogram_max(hists[i])[1] for i in levels}
     return hists, maxb
 

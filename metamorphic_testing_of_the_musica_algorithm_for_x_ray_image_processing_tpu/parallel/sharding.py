@@ -1,30 +1,26 @@
-"""Multi-chip scaling via jax.sharding + GSPMD.
+"""Multi-device scaling via jax.sharding + GSPMD.
 
 The reference has no distribution at all (single Vulkan compute queue,
-SURVEY.md section 2.5); its TPU-native scale-out is:
+SURVEY.md section 2.5); the scale-out here is:
 
 * **data parallelism** over the image batch (axis ``"data"``): every image is
   processed independently, so no cross-image communication exists and scaling
-  across an ICI-connected slice is embarrassingly parallel;
+  across devices is embarrassingly parallel;
 * **spatial parallelism** over image rows (axis ``"space"``): for images (or
-  batch-per-chip memory budgets) that exceed one chip, the input is sharded
+  batch-per-device memory budgets) that exceed one device, the input is sharded
   along the first image axis.  The 5x5 convolutions then require a 2-row halo
   and the histograms a global reduction -- both of which GSPMD derives
   automatically from the sharding annotations (collective-permute halos,
   all-reduce histogram partials) with the whole pipeline written as plain
-  jnp; no hand-written NCCL-style code, no manual ring schedules.
+  jnp; no hand-written collectives, no manual ring schedules.
 
-The two compose on a 2-D ``(data, space)`` mesh.
-
-Note on single-chip batching: vmapping the pipeline over a batch on ONE chip
-degrades per-image cost ~2-4x (XLA's batched strided-slice layouts); prefer
-one image per chip with data parallelism across the mesh -- each device then
-runs the optimal single-image program.
+The two compose on a 2-D ``(data, space)`` mesh.  Each device runs the
+unbatched single-image program (``lax.map`` over its local batch).
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Optional, Sequence
 
 import jax
@@ -48,7 +44,6 @@ def make_mesh(n_data: Optional[int] = None, n_space: int = 1,
 
 
 def process_sharded(imgs_u16: jnp.ndarray, cfg: MusicaConfig, mesh: Mesh,
-                    hist_method: str = "auto",
                     outputs: Sequence[str] = ("out_u8",)):
     """Batched pipeline with batch sharded over ``data`` and image rows over
     ``space``.  Input [B, n, n] uint16, output [B, n-2m, n-2m] uint8.
@@ -59,44 +54,40 @@ def process_sharded(imgs_u16: jnp.ndarray, cfg: MusicaConfig, mesh: Mesh,
     only *executed* under sharding when ``"clahe_graded"`` is requested.
 
     Both mesh shapes run the UNBATCHED single-image program (``lax.map``
-    over the local batch) -- never ``vmap``, whose batched strided-slice
-    layouts cost 2-4x per image on TPU (docs/PERFORMANCE.md):
+    over the local batch):
 
     * ``space == 1``: fully-manual ``shard_map`` over ``data``; each device
-      runs the optimal single-image program including the Pallas histogram
-      kernels.
+      runs the single-image program.
     * ``space > 1``: partial-manual ``shard_map`` (manual over ``data``,
       GSPMD-auto over ``space``): the per-image body is annotated with a
       ``P("space", None)`` row sharding and GSPMD inserts the 2-row conv
-      halo exchanges and histogram all-reduces.  GSPMD cannot partition the
-      hand-written Pallas kernels, so the XLA factorized-one-hot histogram
-      path ('fact') is substituted (identical integer counts).
+      halo exchanges and histogram all-reduces.
     """
-    if hist_method == "auto" and mesh.shape["space"] > 1:
-        hist_method = "fact"
-    in_spec = NamedSharding(mesh, P("data", "space", None))
     outputs = tuple(outputs)
+    run = _sharded_program(cfg, mesh, outputs)
+    out = run(jax.device_put(imgs_u16,
+                             NamedSharding(mesh, P("data", "space", None))))
+    return out[0] if len(outputs) == 1 else out
+
+
+@lru_cache(maxsize=16)
+def _sharded_program(cfg: MusicaConfig, mesh: Mesh, outputs: tuple):
+    """The jitted program of ``process_sharded``, built once per (config,
+    mesh, outputs) so that repeated calls reuse its compilation."""
     out_specs = tuple(P("data", None, None) for _ in outputs)
 
     def per_image(im):
-        r = musica.musica_forward(im, cfg, hist_method)
+        r = musica.musica_forward(im, cfg)
         return tuple(r[k] for k in outputs)
 
     if mesh.shape["space"] == 1:
         # pure data parallelism: shard_map + per-device lax.map runs the
-        # optimal SINGLE-image program on each chip and loops any extra
-        # local batch sequentially (lax.map measures 1.09x the single-image
-        # rate at B=4 vs vmap's 2-4x penalty; scripts/exp_batch.py)
-        # check_vma=False: the Pallas kernels' out_shapes carry no varying-
-        # manual-axes annotation, which JAX >= 0.9 rejects inside a manual
-        # shard_map region (only surfaces on TPU, where 'auto' dispatches
-        # to the Pallas histogram kernels)
-        run = jax.jit(jax.shard_map(
+        # single-image program on each device and loops any extra local
+        # batch sequentially
+        return jax.jit(jax.shard_map(
             lambda b: jax.lax.map(per_image, b),
             mesh=mesh, in_specs=P("data", None, None),
-            out_specs=out_specs, check_vma=False))
-        out = run(jax.device_put(imgs_u16, in_spec))
-        return out[0] if len(outputs) == 1 else out
+            out_specs=out_specs))
 
     # data x space: manual over `data`, auto (GSPMD) over `space`.  The body
     # sees the local [B/data, n, n] shard still row-sharded over `space`;
@@ -106,11 +97,9 @@ def process_sharded(imgs_u16: jnp.ndarray, cfg: MusicaConfig, mesh: Mesh,
         b = jax.lax.with_sharding_constraint(b, P(None, "space", None))
         return jax.lax.map(per_image, b)
 
-    run = jax.jit(jax.shard_map(
+    return jax.jit(jax.shard_map(
         body, mesh=mesh, in_specs=P("data", None, None),
         out_specs=out_specs, axis_names={"data"}))
-    out = run(jax.device_put(imgs_u16, in_spec))
-    return out[0] if len(outputs) == 1 else out
 
 
 def throughput_step(cfg: MusicaConfig, mesh: Mesh, batch_per_device: int = 1):
@@ -125,7 +114,7 @@ def throughput_step(cfg: MusicaConfig, mesh: Mesh, batch_per_device: int = 1):
     if mesh.shape["space"] == 1:
         @jax.jit
         @partial(jax.shard_map, mesh=mesh, in_specs=P("data", None, None),
-                 out_specs=P(), check_vma=False)
+                 out_specs=P())
         def step(b):
             out = jax.lax.map(
                 lambda im: musica.musica_forward(im, cfg)["out_u8"], b)
@@ -136,7 +125,7 @@ def throughput_step(cfg: MusicaConfig, mesh: Mesh, batch_per_device: int = 1):
         def body(b):
             b = jax.lax.with_sharding_constraint(b, P(None, "space", None))
             out = jax.lax.map(
-                lambda im: musica.musica_forward(im, cfg, "fact")["out_u8"], b)
+                lambda im: musica.musica_forward(im, cfg)["out_u8"], b)
             return jax.lax.psum(out.astype(jnp.uint32).sum(), "data")
 
         step = jax.jit(jax.shard_map(

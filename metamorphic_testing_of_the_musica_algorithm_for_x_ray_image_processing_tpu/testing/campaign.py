@@ -53,19 +53,15 @@ _ROBUSTNESS_HEADER = [
 def _measure_row(alt, unalt, ref, ovd):
     """Six similarity numbers + the three reference-normalized ratios.
 
-    When ``unalt``/``ref`` are device (jax) arrays, all six numbers come
-    from ONE fused jitted call (metrics.measure_row_device) with only
-    ``alt`` crossing the host boundary.  NumPy inputs with an accelerator
-    present (the registration-normalized rows' ~31 distinct crop shapes,
-    each of which would cost a remote-TPU compile) use the same fused
-    program on the local CPU backend.  The f64 host oracles remain the
-    no-accelerator path."""
-    if not isinstance(unalt, np.ndarray):
+    With an accelerator, all six numbers come from ONE fused jitted call
+    (metrics.measure_row_device); ``unalt``/``ref`` that are already device
+    arrays stay there, so only ``alt`` crosses the host boundary.  The f64
+    host oracles are the no-accelerator path."""
+    if not isinstance(unalt, np.ndarray) or metrics.device_metrics_available():
+        import jax.numpy as jnp
         (own_mse, own_ssim, own_hist, ref_mse, ref_ssim,
-         ref_hist) = metrics.measure_row_device(alt, unalt, ref)
-    elif metrics.device_metrics_available():
-        (own_mse, own_ssim, own_hist, ref_mse, ref_ssim,
-         ref_hist) = metrics.measure_row_cpu_jax(alt, unalt, ref)
+         ref_hist) = metrics.measure_row_device(
+             alt, jnp.asarray(unalt), jnp.asarray(ref))
     else:
         own_mse = metrics.mse_similarity(alt, unalt)
         own_ssim = metrics.ssim_similarity(alt, unalt)
@@ -81,18 +77,12 @@ def _measure_row(alt, unalt, ref, ovd):
 
 def default_runner(image_size: int, quirks: bool = True,
                    transpose: bool = True,
-                   aot_cache: bool = False,
                    storage: str = "float32") -> Callable:
     """In-process system under test: raw array (file layout) -> output u8.
 
     Applies the standalone CLI's transpose on load
     (test/standalone/main.cpp:67-75) so results match `cli process`;
     ``transpose=False`` mirrors `cli process --no-transpose`.
-
-    ``aot_cache=True`` loads/saves the serialized pipeline executable
-    (utils/aot_cache.py) under the SAME key as ``cli process --aot-cache``,
-    skipping the multi-minute remote compile that otherwise dominates a
-    fresh campaign process's cold start.
 
     ``storage="bfloat16"`` runs the campaign against the bf16 fast mode
     (cli: ``campaign --bf16``) -- the MT harness then measures whether the
@@ -102,18 +92,8 @@ def default_runner(image_size: int, quirks: bool = True,
     import jax.numpy as jnp
     cfg = MusicaConfig(image_size=image_size, quirks=quirks, storage=storage)
 
-    fwd = None
-    if aot_cache:
-        from ..utils.aot_cache import cached_compile
-        example = jnp.zeros((image_size, image_size), jnp.uint16)
-        fwd = cached_compile(
-            lambda im: musica.musica_forward(im, cfg)["out_u8"],
-            key_parts=("process", cfg), example_args=(example,))
-
     def run(raw_u16: np.ndarray) -> np.ndarray:
         im = raw_u16.T if transpose else raw_u16
-        if fwd is not None:
-            return np.asarray(fwd(jnp.asarray(im)))
         return np.asarray(musica.process_jit(jnp.asarray(im), cfg))
 
     return run
@@ -151,7 +131,6 @@ def run_campaign(out_dir: str = "mt_out", image_size: int = 3072,
                  save_images: bool = False,
                  quirks: bool = True,
                  transpose: bool = True,
-                 aot_cache: bool = False,
                  storage: str = "float32") -> dict:
     """Run the full campaign; returns {csv_name: rows} and writes the CSVs.
 
@@ -163,7 +142,6 @@ def run_campaign(out_dir: str = "mt_out", image_size: int = 3072,
     anatomies = list(anatomies or ANATOMIES)
     runner = runner or default_runner(image_size, quirks=quirks,
                                       transpose=transpose,
-                                      aot_cache=aot_cache,
                                       storage=storage)
     rng = np.random.default_rng(seed)
     out = Path(out_dir)
@@ -267,11 +245,10 @@ def run_campaign(out_dir: str = "mt_out", image_size: int = 3072,
         for deg in perturb.ROTATIONS:
             name = f"r_{deg}"
             alt_out = direct(name, perturb.clamp_rotate(raw, deg))
-            from PIL import Image
             h, w = alt_out.shape
             l, tp, r, btm = perturb.inner_rect_after_rotation(w, h, deg)
-            rot_u = np.array(Image.fromarray(unalt).rotate(deg))
-            rot_r = np.array(Image.fromarray(reference).rotate(deg))
+            rot_u = perturb.rotate_nearest(unalt, deg)
+            rot_r = perturb.rotate_nearest(reference, deg)
             sl = (slice(tp, btm), slice(l, r))
             results[NR_CSV].append(
                 [anat, name, *_measure_row(alt_out[sl], rot_u[sl],

@@ -14,6 +14,8 @@ Families and intensity schedules (script.py:383-657):
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 QUANTUM_FACTORS = (0.1, 0.05, 0.025, 0.0125, 0.00625)
@@ -89,20 +91,69 @@ def clamp_translation(img: np.ndarray, x_shift: int = 0, y_shift: int = 0) -> np
     return out
 
 
+def _rotate_matrix(w: int, h: int, degree: float):
+    """The inverse affine map (output -> input pixel) of PIL's
+    ``Image.rotate(degree)`` about the image center, rounded as PIL rounds
+    it (``Image.rotate``: cos/sin rounded to 15 digits)."""
+    angle = -math.radians(degree % 360.0)
+    a, b = round(math.cos(angle), 15), round(math.sin(angle), 15)
+    d, e = round(-math.sin(angle), 15), round(math.cos(angle), 15)
+    cx, cy = w / 2, h / 2
+    return a, b, a * -cx + b * -cy + 0.0 + cx, d, e, d * -cx + e * -cy + 0.0 + cy
+
+
+def rotate_nearest(img: np.ndarray, degree: float, fill: int = 0) -> np.ndarray:
+    """NumPy port of PIL's ``Image.fromarray(img).rotate(degree,
+    fillcolor=fill)`` (NEAREST resampling, no expand), bit-exact for uint8
+    ("L") and uint16 ("I;16") images at the angles PIL rotates through its
+    affine path (PIL transposes multiples of 90 degrees instead); pinned
+    against PIL in tests/test_metamorphic.py.
+
+    PIL samples the two modes differently (libImaging/Geometry.c): "L"
+    takes the 16.16 fixed-point walk (``affine_fixed``), "I;16" the
+    double-precision generic transform at pixel centers
+    (``affine_transform`` + ``nearest_filter16``)."""
+    h, w = img.shape
+    a0, a1, a2, a3, a4, a5 = _rotate_matrix(w, h, degree)
+    y = np.arange(h, dtype=np.int64)[:, None]
+    x = np.arange(w, dtype=np.int64)[None, :]
+    if img.dtype == np.uint8:
+        def fix(v):
+            return math.floor(v * 65536.0 + 0.5)
+        corners = [(0, 0), (w, h), (0, h), (w, 0)]
+        if any(abs(cx * a0 + cy * a1 + a2) >= 32768.0
+               or abs(cx * a3 + cy * a4 + a5) >= 32768.0
+               for cx, cy in corners):
+            raise ValueError("image too large for PIL's fixed-point rotate")
+        xin = (fix(a2 + a1 * 0.5 + a0 * 0.5) + y * fix(a1) + x * fix(a0)) >> 16
+        yin = (fix(a5 + a4 * 0.5 + a3 * 0.5) + y * fix(a4) + x * fix(a3)) >> 16
+    elif img.dtype == np.uint16:
+        xf, yf = x + 0.5, y + 0.5
+        xs = a0 * xf + a1 * yf + a2
+        ys = a3 * xf + a4 * yf + a5
+        xin = np.where(xs < 0.0, -1, xs.astype(np.int64))
+        yin = np.where(ys < 0.0, -1, ys.astype(np.int64))
+    else:
+        raise TypeError(f"rotate_nearest: uint8 or uint16, not {img.dtype}")
+    ok = (xin >= 0) & (xin < w) & (yin >= 0) & (yin < h)
+    out = np.full_like(img, fill)
+    out[ok] = img[yin[ok], xin[ok]]
+    return out
+
+
 def clamp_rotate(img: np.ndarray, degree: float) -> np.ndarray:
     """Rotate with 95th-percentile fill after 100-px margin crop
-    (script.py:122-141); uses PIL for the interpolation, as the harness did.
+    (script.py:122-141), with PIL's NEAREST rotate as the harness used it
+    (``rotate_nearest``).
 
     The reference's margin is a fixed 100 px (it only ever saw 3072² inputs);
     on tiny campaign sizes that would empty the crop, so it is clamped to
     keep at least a 2x2 interior — sizes >= 202 behave exactly as the
     reference."""
-    from PIL import Image
     margin = min(100, (min(img.shape) - 2) // 2)
     cropped = img[margin:img.shape[0] - margin, margin:img.shape[1] - margin]
     fill = int(np.percentile(cropped, 95))
-    pim = Image.fromarray(cropped)
-    rot = np.array(pim.rotate(degree, fillcolor=fill), dtype=np.uint16)
+    rot = rotate_nearest(cropped, degree, fill)
     out = np.full_like(img, fill)
     out[margin:margin + rot.shape[0], margin:margin + rot.shape[1]] = rot
     return out
@@ -111,7 +162,6 @@ def clamp_rotate(img: np.ndarray, degree: float) -> np.ndarray:
 def inner_rect_after_rotation(w: int, h: int, degree: float):
     """Largest axis-aligned inner rectangle after rotation, as computed by the
     harness for registration-normalized comparison (script.py:583-599)."""
-    import math
     rad = math.radians(degree)
     new_w = w * abs(math.cos(rad)) + h * abs(math.sin(rad))
     new_h = h * abs(math.cos(rad)) + w * abs(math.sin(rad))

@@ -11,8 +11,9 @@ Reproduces the reference's file formats:
 * **8-bit single-channel BMP** output (written by stb_image_write in the
   reference, ``src/vk_processing.cpp:2636``).
 
-A native C++ codec (``native/musica_io.cpp``) accelerates batch loading; this
-module transparently falls back to NumPy when the shared library is absent.
+A native C++ codec (``native/musica_io.cpp``, built with ``make -C native``)
+accelerates batch loading; this module transparently falls back to NumPy
+when the shared library has not been built.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def load_raw(path: str | os.PathLike, size: int = 3072,
 def load_raw_batch(paths, size: int = 3072, transpose: bool = True,
                    n_threads: int = 0) -> np.ndarray:
     """Load many raws into one [B, size, size] array; uses the threaded
-    native loader when available (the data-pipeline feed for batched TPU
+    native loader when available (the data-pipeline feed for batched
     processing)."""
     paths = [str(p) for p in paths]
     lib = _load_native()

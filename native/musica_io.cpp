@@ -1,4 +1,4 @@
-// Native IO codec for the MUSICA TPU framework.
+// Native IO codec for the MUSICA framework (build: make -C native).
 //
 // Covers the reference's host-side file layer with a multithreaded C++
 // implementation (reference: src/file.cpp readFile/writeFile, the standalone

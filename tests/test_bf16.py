@@ -1,20 +1,19 @@
-"""bf16 storage mode (config.py ``storage="bfloat16"``): the TPU-native fast
+"""bf16 storage mode (config.py ``storage="bfloat16"``): the fast
 mode stores the BAND streams (pyramid bandpasses, contrast-applied and
 noise-reduced bandpasses) as bf16 while the level inputs, recon accumulation
 and the whole analysis path stay f32.
 
-Why only bands (the round-5 redesign): the round-4 design stored the level
-inputs bf16 too, and their quantization noise (~ulp(0.5) = 2e-3, high
-frequency) passed straight into the near-cancelling `in - low` bandpasses --
-at 3072 the noise ANALYSIS then measured the quantization instead of the
-image (level-3 sdev +20%, CNR across the relevance cliff at 256, tone curve
-shifted by tens of LSB; scripts/exp_bf16.py failed its own <=1-LSB assertion
-with 988k knife pixels on the thorax phantom).  Rounding the computed band
-is an error relative to the band (~0.4%) and is benign.
+Why only bands: an earlier design stored the level inputs bf16 too, and
+their quantization noise (~ulp(0.5) = 2e-3, high frequency) passed straight
+into the near-cancelling `in - low` bandpasses -- at 3072 the noise ANALYSIS
+then measured the quantization instead of the image (level-3 sdev +20%, CNR
+across the relevance cliff at 256, tone curve shifted by tens of LSB).
+Rounding the computed band is an error relative to the band (~0.4%) and is
+benign.
 
 The mode has no reference analogue; the contract tested here is its
-*distance to the f32 parity mode* (scripts/exp_bf16.py validates the same
-profile at 3072 on chip):
+*distance to the f32 parity mode* (chip_smoke.py checks the same contract
+at 3072 on the GPU):
 
 * the overwhelming majority of output pixels are bit-identical or within
   1 u8 LSB;

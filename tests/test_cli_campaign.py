@@ -111,7 +111,7 @@ def test_cli_campaign_threads_flags(monkeypatch, tmp_path):
                         "run_campaign", fake_run)
     rc = cli.main(["campaign", "--size", "128", "--no-quirks",
                    "--no-transpose", "--seed", "42", "--save-images",
-                   "--aot-cache", "--bf16", "--input-dir", str(tmp_path),
+                   "--bf16", "--input-dir", str(tmp_path),
                    "--out-dir",
                    str(tmp_path / "o"), "--anatomies", "foot,hand"])
     assert rc == 0
@@ -119,30 +119,10 @@ def test_cli_campaign_threads_flags(monkeypatch, tmp_path):
     assert captured["transpose"] is False
     assert captured["seed"] == 42
     assert captured["save_images"] is True
-    assert captured["aot_cache"] is True
     assert captured["storage"] == "bfloat16"
     assert captured["input_dir"] == str(tmp_path)
     assert captured["anatomies"] == ["foot", "hand"]
     assert captured["image_size"] == 128
-
-
-def test_default_runner_aot_cache_matches_jit(monkeypatch, tmp_path):
-    """aot_cache=True routes through the serialized-executable cache (same
-    key as `cli process --aot-cache`), writes a cache entry, and produces
-    output bit-identical to the plain jit runner — both on the cold
-    (compile+save) and warm (deserialize) paths."""
-    monkeypatch.setenv("MUSICA_AOT_CACHE", str(tmp_path / "aot"))
-    size = 128
-    raw = synthetic_radiograph(size, "thorax")
-
-    base = campaign.default_runner(size)(raw)
-    cold = campaign.default_runner(size, aot_cache=True)(raw)
-    entries = list((tmp_path / "aot").glob("*.bin"))
-    assert entries, "cold aot_cache run wrote no cache entry"
-    warm = campaign.default_runner(size, aot_cache=True)(raw)
-
-    np.testing.assert_array_equal(base, cold)
-    np.testing.assert_array_equal(base, warm)
 
 
 def test_default_runner_honors_quirks_and_transpose():

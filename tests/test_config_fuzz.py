@@ -1,8 +1,8 @@
 """Config-space parity fuzz: the jit pipeline must track the golden oracle
 for valid NON-DEFAULT configurations, not just the reference presets.
 
-Motivated by the round-3 advisor finding that the TPU 'auto' histogram
-dispatch crashed for noise_histogram_bins not factorizable by the Pallas
+Motivated by an earlier finding that a platform-specific histogram
+dispatch crashed for noise_histogram_bins not factorizable by its
 kernel (fixed with a fallback): robustness regressions for legal configs
 hide exactly where no test ever instantiates them.  Each case below varies
 a different axis (ragged pyramid structure, non-factorizable histogram

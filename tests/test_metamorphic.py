@@ -42,7 +42,7 @@ def test_ssim_matches_reference_formula():
 
 
 def test_ssim_jax_matches_numpy_oracle(rng):
-    """The device (f32) SSIM used by the campaign on TPU must track the f64
+    """The device (f32) SSIM used by the campaign on a GPU must track the f64
     NumPy oracle to ~1e-5 -- on random, structured, and odd-shaped pairs."""
     a = rng.integers(0, 256, (301, 211)).astype(np.uint8)
     b = np.clip(a.astype(int) + rng.integers(-20, 20, a.shape), 0, 255
@@ -63,8 +63,8 @@ def test_ssim_jax_matches_numpy_oracle(rng):
 
 def test_measure_row_device_matches_host_oracles(rng):
     """The fused one-call device metric program (mse+ssim+hist-euclid x2)
-    must track the f64 host oracles; exercised on CPU-jax here, used on TPU
-    by the campaign."""
+    must track the f64 host oracles; exercised on CPU-jax here, used on the
+    GPU by the campaign."""
     import jax.numpy as jnp
     alt = rng.integers(0, 256, (173, 211)).astype(np.uint8)
     unalt = np.clip(alt.astype(int) + rng.integers(-25, 25, alt.shape),
@@ -156,6 +156,25 @@ def test_rotation_shape_and_fill():
     out = perturb.clamp_rotate(img, 45)
     assert out.shape == img.shape
     assert out.dtype == np.uint16
+
+
+@pytest.mark.parametrize("size", [300, 1024])
+@pytest.mark.parametrize("degree", perturb.ROTATIONS)
+def test_rotate_nearest_matches_pil(size, degree):
+    """The NumPy port of PIL's NEAREST rotate is bit-exact against PIL for
+    both image kinds the campaign rotates: the uint16 input raw (mode
+    "I;16", with a fill value, as clamp_rotate calls it) and the uint8
+    outputs (mode "L", default zero fill, as the registration step)."""
+    Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(size + degree)
+    img16 = rng.integers(0, 65536, (size, size)).astype(np.uint16)
+    ref16 = np.array(Image.fromarray(img16).rotate(degree, fillcolor=4321),
+                     dtype=np.uint16)
+    np.testing.assert_array_equal(perturb.rotate_nearest(img16, degree, 4321),
+                                  ref16)
+    img8 = rng.integers(0, 256, (size, size)).astype(np.uint8)
+    np.testing.assert_array_equal(perturb.rotate_nearest(img8, degree),
+                                  np.array(Image.fromarray(img8).rotate(degree)))
 
 
 # ----------------------------------------------------------------------

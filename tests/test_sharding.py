@@ -69,7 +69,7 @@ def test_spatial_sharding_ragged_sizes(size):
                      synthetic_radiograph(size, "pelvis")])
     mesh = sharding.make_mesh(n_data=2, n_space=4)
     out = np.asarray(sharding.process_sharded(jnp.asarray(imgs), cfg, mesh))
-    ref = np.asarray(musica.process_batch_jit(jnp.asarray(imgs), cfg, "fact"))
+    ref = np.asarray(musica.process_batch_jit(jnp.asarray(imgs), cfg))
     diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
     assert diff.max() <= 1, f"max u8 delta {diff.max()}"
     frac = (diff > 0).mean()
@@ -127,7 +127,7 @@ def test_variant_sharding_576(variant):
 
     @jax.jit
     def one(im):
-        r = musica.musica_forward(im, cfg, "fact")
+        r = musica.musica_forward(im, cfg)
         return tuple(r[k] for k in outputs)
 
     ref = [np.stack(x) for x in zip(*(one(im) for im in jnp.asarray(imgs)))]
@@ -156,14 +156,14 @@ def test_structural_config_sharding_576():
                      synthetic_radiograph(576, "pelvis")])
     mesh = sharding.make_mesh(n_data=2, n_space=2)
     out = np.asarray(sharding.process_sharded(jnp.asarray(imgs), cfg, mesh))
-    ref = np.asarray(musica.process_batch_jit(jnp.asarray(imgs), cfg, "fact"))
+    ref = np.asarray(musica.process_batch_jit(jnp.asarray(imgs), cfg))
     diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
     assert diff.max() <= 1, f"max u8 delta {diff.max()}"
     assert (diff > 0).mean() < 1e-4
 
 
 def test_data_parallel_multi_output():
-    """outputs=(...) on the pure-dp (space == 1, check_vma=False) path:
+    """outputs=(...) on the pure-dp (space == 1) path:
     the tuple plumbing through shard_map/lax.map must shard every output
     over `data` and match per-image single-device results."""
     cfg = MusicaConfig(image_size=256)
